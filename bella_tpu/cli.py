@@ -15,7 +15,7 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="bella",
-        description="BELLA-TPU: Long Read to Long Read Aligner and Overlapper",
+        description="BELLA on JAX: Long Read to Long Read Aligner and Overlapper",
     )
     ap.add_argument("-f", "--fastq", required=True, help="list of fastq(s) (fofn) or a single .fastq")
     ap.add_argument("-o", "--output", required=True, help="output filename (suffix .out added)")
@@ -57,9 +57,6 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cross-validate device results against host "
                          "oracles (recount + seed + aligner checks; "
                          "debug mode, O(corpus) host work)")
-    ap.add_argument("--no-prewarm", action="store_true",
-                    help="disable background compilation of the aligner "
-                         "kernel variants during detection")
     return ap
 
 
@@ -93,10 +90,9 @@ def main(argv=None) -> int:
         profile_dir=args.profile,
         devices=args.devices,
         selfcheck=args.selfcheck,
-        prewarm=not args.no_prewarm,
     )
     if config.devices > 1:
-        # multi-host runtimes need the distributed client before any
+        # multi-process runs need the distributed client before any
         # device work (no-op when coordinator env vars are absent)
         from bella_tpu.parallel.dist import init_distributed
 

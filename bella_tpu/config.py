@@ -1,9 +1,10 @@
 """Run configuration.
 
 Mirrors the reference's ``BELLApars`` struct (include/common/common.h:46-74)
-and the CLI flag set (src/main.cpp:74-94), plus TPU-specific knobs
-(capacities, band width, batch sizes) that replace the reference's
-free-RAM probing (include/overlap.hpp:365-404).
+and the CLI flag set (src/main.cpp:74-94), plus device knobs (band
+width, batch sizes, aligner backend) and a staging budget probed from
+the device in place of the reference's free-RAM probing
+(include/overlap.hpp:365-404).
 """
 
 from __future__ import annotations
@@ -45,56 +46,23 @@ class BellaConfig:
                                    # multiplicity stats (kmers/bound.py
                                    # estimate_coverage)
 
-    # --- TPU-native knobs (no reference equivalent; replace RAM probing) ---
-    band_width: int = 128          # x-drop aligner band (lanes); ref uses 31
-                                   # (xavier/simdutils.h:22-31); 128 = VPU lane dim
-    aligner_backend: str = "auto"  # auto | pallas | jax  (auto = pallas on TPU,
-                                   # adaptive-band pure-JAX elsewhere)
-    pallas_band: int = 128         # static centered band of the Pallas kernel
-                                   # (128 measured best with the cascade
-                                   # rescue: 85.2 vs 76.0 Mbases/s at 256 on
-                                   # the bench corpus, identical pass set;
-                                   # ~5% of pairs drift past W/2 and re-extend
-                                   # at 256/512)
-    band_rescue: bool = True       # re-extend pairs that saturate the static
-                                   # band through a cascade of 2x-band kernel
-                                   # passes up to rescue_ceiling; whatever
-                                   # still saturates the widest pass re-runs
-                                   # through the adaptive-band jax backend on
-                                   # a compacted read set (exactness for
-                                   # arbitrary indel drift, matching the
-                                   # reference's unbounded adaptive band,
-                                   # xavier/simdutils.h:263-289)
-    rescue_predict: bool = True    # drift predictor: route each saturated
-                                   # pair straight to its predicted terminal
-                                   # rescue band (drift-rate extrapolation
-                                   # from the truncated first extension x the
-                                   # overlapop estimate) instead of walking
-                                   # every cascade level; mispredicting low
-                                   # falls back to the doubling walk,
-                                   # mispredicting high costs one wider pass
-                                   # (score still max-of-visited-bands)
-    rescue_ceiling: int = 2048     # widest static rescue band (>= 2x
-                                   # pallas_band is always tried).
-                                   # Measured on the bench corpus: 2048
-                                   # resolves every drifted pair in-kernel
-                                   # AND is fastest (2.38 s vs 2.80 at 512,
-                                   # where 70 pairs took the jax tail);
-                                   # the tail remains as the terminal
-                                   # exactness guarantee for longer drift
+    # --- device knobs (no reference equivalent; replace RAM probing) ---
+    band_width: int = 128          # x-drop aligner band (cells); ref uses 31
+                                   # (xavier/simdutils.h:22-31); the CUDA
+                                   # kernel takes 32, 64, 128 or 256
+    aligner_backend: str = "auto"  # auto | cuda | jax  (auto = the CUDA
+                                   # kernel on a GPU, the plain-JAX
+                                   # extend_batch elsewhere)
     align_batch: int = 4096        # alignment pairs per device batch
                                    # (ref: 30000/GPU, include/align.hpp:35)
     max_steps: Optional[int] = None  # wavefront step cap; None = len-derived
                                    # (2 * padded read length, xdrop.py)
-    prewarm: bool = True           # compile align-kernel tier variants in a
-                                   # background thread during detection
-                                   # (cold-start jit overlap; xdrop.py
-                                   # prewarm_align_kernels)
     selfcheck: bool = False        # --selfcheck  cross-validate device
                                    # results against host numpy oracles
                                    # (utils/selfcheck.py; the sanitizer/
                                    # serial-mode role of makefile-nersc:
-                                   # 17-23,70) — debug mode, O(corpus)
+                                   # 17-23,70) and the aligner against
+                                   # extend_batch — debug mode, O(corpus)
                                    # host work
     devices: int = 0               # --devices  mesh size for distributed
                                    # detection + data-parallel alignment
@@ -113,6 +81,11 @@ class BellaConfig:
             self.use_minimizer = False
         if not (0.0 <= self.delta_chernoff <= 1.0):
             raise ValueError("delta_chernoff must be in [0, 1]")
+        if self.aligner_backend not in ("auto", "cuda", "jax"):
+            raise ValueError(
+                "aligner_backend must be auto, cuda or jax, got "
+                f"{self.aligner_backend!r}"
+            )
 
     @property
     def effective_error_rate(self) -> float:
@@ -121,38 +94,34 @@ class BellaConfig:
 
     @property
     def effective_memory_mb(self) -> float:
-        """Staging budget: the -m flag when given, else the accelerator's
-        memory (estimateMemory parity, include/overlap.hpp:365-404;
-        falls back to the reference's 8 GB default off-accelerator)."""
+        """Staging budget: the -m flag when given, else the device's
+        memory (estimateMemory parity, include/overlap.hpp:365-404)."""
         if self.total_memory_mb > 0:
             return self.total_memory_mb
         global _PROBED_MEMORY_MB
         if _PROBED_MEMORY_MB is None:
-            probed = 8000.0
-            try:
-                import jax
+            import jax
 
-                dev = jax.devices()[0]
-                stats = dev.memory_stats() or {}
-                limit = stats.get("bytes_limit")
-                if limit:
-                    probed = limit / 1e6
-                elif dev.platform == "tpu":
-                    # some TPU runtimes (e.g. tunneled PJRT plugins)
-                    # report no memory stats; fall back to the HBM of
-                    # the device kind
-                    kind = dev.device_kind.lower()
-                    hbm_gb = {
-                        "tpu v5 lite": 16, "tpu v5e": 16, "tpu v4": 32,
-                        "tpu v5": 95, "tpu v5p": 95, "tpu v6 lite": 32,
-                        "tpu v6e": 32,
-                    }.get(kind)
-                    if hbm_gb:
-                        probed = hbm_gb * 1e3
-            except Exception:
-                pass
-            _PROBED_MEMORY_MB = probed
+            _PROBED_MEMORY_MB = device_memory_mb(jax.devices()[0])
         return _PROBED_MEMORY_MB
 
 
 _PROBED_MEMORY_MB: Optional[float] = None
+CPU_MEMORY_MB = 8000.0  # the reference's 8 GB default, for the CPU only
+
+
+def device_memory_mb(dev) -> float:
+    """What JAX may allocate on `dev` (``bytes_limit`` of its memory
+    stats: on a GPU, the share of the card JAX reserved). The CPU, which
+    reports no limit, gets the reference's 8 GB default; any other
+    device without a limit is an error, never an assumed size."""
+    stats = dev.memory_stats() or {}
+    limit = stats.get("bytes_limit")
+    if limit:
+        return limit / 1e6
+    if dev.platform == "cpu":
+        return CPU_MEMORY_MB
+    raise RuntimeError(
+        f"{dev.platform} device {dev.device_kind!r} reports no bytes_limit; "
+        "pass the staging budget with -m MB"
+    )

@@ -1,15 +1,20 @@
 """ctypes bindings for the native ingest/output runtime.
 
-Builds fastq_native.cpp with g++ on first use (cached as .so next to
-the source); every entry point has a pure-numpy fallback, so the
-package works without a toolchain.
+Builds fastq_native.cpp with g++ on first use into ``_build/`` (git-
+ignored) under a name keyed by a hash of the source and the compiler
+flags; the flags are portable (no -march=native), so a library copied
+with the tree to another host still runs there, and an edited source
+always rebuilds. Every entry point has a pure-numpy fallback, so the
+package works without a C++ compiler.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
+import tempfile
 import threading
 from typing import Optional
 
@@ -17,21 +22,35 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "fastq_native.cpp")
-_SO = os.path.join(_DIR, "libbella_native.so")
+_FLAGS = ["-O3", "-pthread", "-shared", "-fPIC"]
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 
-def _build() -> bool:
+def library_path() -> str:
+    with open(_SRC, "rb") as f:
+        h = hashlib.sha256(f.read())
+    h.update("\0".join(_FLAGS).encode())
+    return os.path.join(_DIR, "_build", f"libbella_native-{h.hexdigest()[:16]}.so")
+
+
+def _build(out: str) -> bool:
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out))
+    os.close(fd)
     try:
         subprocess.run(
-            ["g++", "-O3", "-march=native", "-pthread", "-shared", "-fPIC", _SRC, "-o", _SO],
+            ["g++", *_FLAGS, _SRC, "-o", tmp],
             check=True, capture_output=True, timeout=120,
         )
+        os.replace(tmp, out)
         return True
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -40,11 +59,11 @@ def get_lib() -> Optional[ctypes.CDLL]:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-            if not _build():
-                return None
+        so = library_path()
+        if not os.path.exists(so) and not _build(so):
+            return None
         try:
-            lib = ctypes.CDLL(_SO)
+            lib = ctypes.CDLL(so)
         except OSError:
             return None
         lib.fastq_scan.restype = ctypes.c_int

@@ -1,6 +1,6 @@
 // Native ingest + output runtime for bella_tpu.
 //
-// Re-implements the roles of the reference's C I/O layer TPU-side:
+// Re-implements the roles of the reference's C I/O layer:
 //   * kmercode/fq_reader.c  - block FASTQ parsing (here: one mmap'd
 //     pass emitting 2-bit codes, offsets, name spans, qual error sum)
 //   * include/overlap.hpp:603-640 - bulk overlap-row output (here:

@@ -26,7 +26,8 @@ overflow counters and the host retries the whole exchange with doubled
 capacities (the reference drops nothing either — it stages instead,
 include/overlap.hpp:682-786).
 
-Collectives ride ICI via jax.lax.all_to_all under shard_map; on
+Collectives are jax.lax.all_to_all under shard_map (NCCL over NVLink
+between GPUs); on
 multi-host deployments initialize jax.distributed first (see
 bella_tpu.parallel.init_distributed).
 """
@@ -445,8 +446,8 @@ def init_distributed() -> None:
     SURVEY §5 distributed backend). No-op when the coordinator env vars
     are absent or initialization already happened.
 
-    Config via env (the manual-cluster form; TPU pod slices and SLURM
-    are auto-detected by jax.distributed.initialize() itself):
+    Config via env (the manual-cluster form; SLURM and other cluster
+    environments are auto-detected by jax.distributed.initialize()):
       JAX_COORDINATOR_ADDRESS  host:port of process 0's coordinator
       JAX_NUM_PROCESSES        total process count
       JAX_PROCESS_ID           this process's rank
@@ -476,19 +477,11 @@ def init_distributed() -> None:
             num_processes=int(nproc),
             process_id=int(pid),
         )
-    try:
-        # cross-process CPU collectives need gloo, and the flag must be
-        # set BEFORE the backend initializes; it only affects the CPU
-        # client, so setting it unconditionally is harmless on TPU
-        # (case/variant-insensitive to however JAX_PLATFORMS is spelled)
-        jax.config.update("jax_cpu_collectives_implementation", "gloo")
-    except Exception:
-        pass
-    try:
-        jax.distributed.initialize(**kwargs)
-        log(
-            "jaxDistributed",
-            f"process {jax.process_index()}/{jax.process_count()}",
-        )
-    except RuntimeError:
-        pass  # already initialized
+    # cross-process CPU collectives need gloo, and the flag must be set
+    # BEFORE the backend initializes; it only affects the CPU client, so
+    # setting it unconditionally is harmless on a GPU
+    jax.config.update("jax_cpu_collectives_implementation", "gloo")
+    if jax.distributed.is_initialized():
+        return
+    jax.distributed.initialize(**kwargs)
+    log("jaxDistributed", f"process {jax.process_index()}/{jax.process_count()}")

@@ -1,7 +1,7 @@
 """Multi-device overlap detection over a jax.sharding.Mesh.
 
 The reference is shared-memory OpenMP only (SURVEY §2.3); this module is
-the scale-out design its parallelism maps to on a TPU pod slice:
+the scale-out design its parallelism maps to on several devices:
 
   1. reads-partitioned ingest: each device holds a slice of the k-mer
      occurrence stream (the OpenMP byte-range FASTQ split, kmercode/
@@ -18,7 +18,7 @@ the scale-out design its parallelism maps to on a TPU pod slice:
   5. alignment runs data-parallel over the resulting pair shards
      (the multi-GPU batch split of loganGPU/functions.cuh:441-443).
 
-Collectives ride ICI via jax.lax.all_to_all under shard_map. All local
+Collectives are jax.lax.all_to_all under shard_map. All local
 buffers are fixed-capacity with sentinel padding; overflow is counted
 and surfaced (no silent drops).
 """
@@ -61,8 +61,7 @@ def _route(keys, dest, payload, capacity: int):
     """
     n = jax.lax.axis_size(AXIS)
     m = dest.shape[0]
-    # one multi-operand sort, not argsort+gathers (gathers are the slow
-    # path on this toolchain; see utils/segments.py rationale)
+    # one multi-operand sort, not argsort+gathers
     sorted_all = jax.lax.sort((dest,) + tuple(payload), num_keys=1)
     dest_s = sorted_all[0]
     payload_s = sorted_all[1:]
@@ -100,8 +99,7 @@ def _local_emit(kmers, read_ids, positions, is_rc, read_lengths,
     it runs inside shard_map with fixed shapes."""
     (k, lower, upper, bin_size) = cfg_static
     # sort by kmer so segments are contiguous: one multi-operand sort
-    # with payloads riding along, not argsort+gathers (gathers are the
-    # slow path on this toolchain; see utils/segments.py rationale)
+    # with payloads riding along, not argsort+gathers
     sk, sr, sp, sc = jax.lax.sort(
         (kmers, read_ids, positions, is_rc), num_keys=1
     )

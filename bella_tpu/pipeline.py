@@ -1,7 +1,7 @@
 """End-to-end overlap pipeline driver.
 
 Orchestrates the phases of src/main.cpp:65-535 (counting -> matrix ->
-SpGEMM/chain -> align -> decide -> write) over the TPU-native stages.
+SpGEMM/chain -> align -> decide -> write) over the device stages.
 """
 
 from __future__ import annotations
@@ -103,14 +103,6 @@ def run_pipeline(
             "use a larger -k (e.g. 21+) or raise -l",
         )
 
-    if not config.skip_alignment and mesh is None and reads.num_reads:
-        # overlap the aligner-kernel compiles (minutes each cold on
-        # remote-helper toolchains) with the detection phase; the
-        # aligner joins the thread before its first dispatch
-        from bella_tpu.align.xdrop import prewarm_align_kernels
-
-        prewarm_align_kernels(reads.lengths, config)
-
     # fused device path for the common configuration; the modular path
     # handles sparse selection, split-count staging, memory-staged
     # emission, matrix dump, and checkpoint/resume. The fused path
@@ -135,6 +127,7 @@ def run_pipeline(
                 # (k-mer and pair all_to_all exchanges, parallel/dist.py)
                 from bella_tpu.parallel.dist import detect_overlaps_sharded
 
+                log("detectionPath", "distributed")
                 pairs, num_kmers, nnz = detect_overlaps_sharded(
                     reads, config, mesh
                 )
@@ -234,8 +227,6 @@ def run_pipeline(
 
         t_aln = _time.perf_counter()
         with phase("alignment"):
-            # the Pallas path packs the ragged word stream straight from
-            # the ReadSet; other backends pad internally on demand
             aln = align_candidates(
                 None, reads.lengths.astype(np.int32), pairs, config,
                 mesh=mesh, reads=reads,

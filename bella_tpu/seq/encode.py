@@ -1,4 +1,4 @@
-"""2-bit sequence / k-mer primitives, fully vectorized for TPU.
+"""2-bit sequence / k-mer primitives, fully vectorized for the device.
 
 Re-designs the reference ``Kmer`` class (kmercode/Kmer.hpp:30-132,
 kmercode/Kmer.cpp:205-355) as array ops: a k-mer (k <= 32) is one uint64
@@ -68,8 +68,8 @@ def pack_kmers(codes, k: int):
         return jnp.zeros((0,), dtype=_U64)
 
     # fori_loop, NOT an unrolled python loop: unrolled, XLA's allocation
-    # plan keeps all k shifted temporaries alive (~k * 8 bytes/position
-    # -> 19 GB at 150M positions, rejected against HBM); the loop-carried
+    # plan keeps all k shifted temporaries alive (~k * 8 bytes/position);
+    # the loop-carried
     # buffer is reused across iterations
     def body(t, val):
         w = jax.lax.dynamic_slice(c, (t,), (n_out,))

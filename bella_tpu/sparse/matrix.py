@@ -4,7 +4,7 @@ transpose, MatrixMarket IO, and an R-MAT generator.
 API parity with the reference L3 layer (include/common/CSC.h,
 src/CSC.cpp, include/common/CSR.h, transpose.h, IO.h, and the GTgraph
 R-MAT generator used by the SpGEMM bench driver, src/mkl_free_main.cpp).
-Construction is sort-based (the TPU idiom) instead of the reference's
+Construction is sort-based instead of the reference's
 count/prefix-sum/scatter + per-column hash dedup (src/CSC.cpp:301-479);
 the pipeline's hot path does NOT go through these containers (it stays
 on the flat k-mer-major stream, bella_tpu/kmers/count.py) — they exist

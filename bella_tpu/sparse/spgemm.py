@@ -1,6 +1,6 @@
 """General sparse matrix-matrix multiply on device (sort-based).
 
-TPU-native counterpart of the reference's hash SpGEMM
+Sort-based counterpart of the reference's hash SpGEMM
 (include/overlap.hpp:282-363) and its two-pass structure: a host-side
 symbolic pass sizes the expansion exactly like estimateFLOP
 (include/overlap.hpp:158-202), then a single jitted numeric pass expands

@@ -11,6 +11,7 @@ from typing import Dict
 
 _ENABLED = True
 PHASE_SECONDS: Dict[str, float] = {}
+LAST: Dict[str, object] = {}  # last value logged under each name
 
 
 def set_enabled(flag: bool) -> None:
@@ -19,6 +20,7 @@ def set_enabled(flag: bool) -> None:
 
 
 def log(name: str, value) -> None:
+    LAST[name] = value
     if _ENABLED:
         print(f"INFO:\t{name} = {value}", file=sys.stderr, flush=True)
 

@@ -1,11 +1,11 @@
 """Scatter-free segment reductions over sorted streams.
 
 The entire overlap pipeline operates on flat occurrence streams sorted so
-that equal keys are contiguous ("segments"). TPU scatters are slow, so
-every per-segment reduction here is built from associative scans +
-gathers (segmented-scan operator), which XLA maps well to the VPU.
+that equal keys are contiguous ("segments"). Every per-segment
+reduction here is built from associative scans + gathers (segmented-scan
+operator) instead of scatters.
 
-This is the TPU replacement for the reference's per-column hash
+This is the replacement for the reference's per-column hash
 accumulators (include/overlap.hpp:306-341) and libcuckoo upserts.
 """
 
@@ -113,8 +113,7 @@ def seg_ids(boundary):
 #
 # The scan-and-gather primitives above (seg_sum/seg_max/seg_bounds) are
 # exact but lower to big self-gathers plus jax.lax.associative_scan
-# networks, which this TPU toolchain handles poorly at tens of millions
-# of rows. The *_bcast variants below compute the same per-segment
+# networks. The *_bcast variants below compute the same per-segment
 # aggregate broadcast to every element using only static shifted slices
 # and selects: 2 * log2(n) elementwise passes, no gather HLOs, no int64.
 # ----------------------------------------------------------------------

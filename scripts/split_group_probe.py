@@ -3,7 +3,7 @@ wide variants, exact parity vs the single-pass fused path (VERDICT r4
 weak #7 — grouped re-extraction previously had toy-scale CI evidence
 only; the CI-scale version lives in tests/test_staged.py).
 
-Run on the TPU: python scripts/split_group_probe.py
+Run on the GPU: python scripts/split_group_probe.py
 """
 
 import time

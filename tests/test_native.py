@@ -162,3 +162,21 @@ def test_parallel_writer_matches_serial(tmp_path, monkeypatch):
         )
         outs[nt] = p.read_bytes()
     assert outs["1"] == outs["7"] and outs["1"]
+
+
+def test_library_keyed_by_source_and_portable(tmp_path, monkeypatch):
+    """The built library's name carries a hash of source and flags, so
+    an edited source rebuilds; no host-specific flag is used, so a copy
+    made on one host loads on another."""
+    import os
+
+    import bella_tpu.native as nat
+
+    path = nat.library_path()
+    assert os.path.basename(os.path.dirname(path)) == "_build"
+    assert not any("march" in f for f in nat._FLAGS)
+    edited = tmp_path / "fastq_native.cpp"
+    with open(nat._SRC) as f:
+        edited.write_text(f.read() + "\n// edited\n")
+    monkeypatch.setattr(nat, "_SRC", str(edited))
+    assert nat.library_path() != path

@@ -102,9 +102,10 @@ def test_repeat_rich_accuracy_floor(tmp_path):
     """Repeat-rich corpus gate (~25% tandem + dispersed diverged
     repeats): reads from different repeat copies share k-mers and
     often genuinely align, so truth-based precision drops for EVERY
-    overlapper — on the 1.8 Mbp crossval corpus the reference scores
-    RC 94.55 / PR 90.02 and ours RC 94.53 / PR 91.22
-    (scripts/crossval_repeats.py, BASELINE.md). This CI floor pins
+    overlapper — on a 1.8 Mbp corpus of this kind the reference binary
+    scored RC 94.55 / PR 90.02 and this code RC 94.53 / PR 91.22 (a
+    cross-validation that needs the reference build, no longer in the
+    repository). This CI floor pins
     that the multi-bin majority vote keeps finding true overlaps
     without exploding the repeat-induced output."""
     from bella_tpu.eval.evaluate import (
